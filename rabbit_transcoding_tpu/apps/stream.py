@@ -45,8 +45,8 @@ class StreamParams(TranscoderParameters):
     onError: str = "abort"   # abort | skip
     # GOFs in flight: >1 overlaps host entropy of one GOF with device
     # compute of the next (GOFs are independent; writes stay ordered).
-    # Depth 3 measured fastest on the bench host (58.1 vs 50.2 fps at
-    # depth 2; one thread feeding entropy, one on device, one deflating)
+    # Depth 3: one thread feeding entropy decode, one on device, one
+    # deflating output
     pipelineDepth: int = 3
     # batch all input streams' GOFs through one mesh-sharded device
     # program (requires >1 input; output is byte-identical to unsharded)
@@ -320,23 +320,6 @@ def main(argv=None) -> int:
     if len(outputs) != len(inputs):
         print("error: input/output stream count mismatch", file=sys.stderr)
         return 1
-
-    # measure the host->device link concurrently with the first GOF's host
-    # entropy work: the timed push doubles as link warmup (first real
-    # upload measured 70+ s at cold-link speed) and steers the adaptive
-    # int8 AC slab wire format on slow links (video/rbv.py note_link_rate)
-    import threading
-
-    def _probe_link() -> None:
-        try:
-            from ..video import rbv
-
-            rate = rbv.measure_link_rate()
-            print(f"link: {rate:.0f} MB/s", file=sys.stderr)
-        except Exception:
-            pass
-
-    threading.Thread(target=_probe_link, daemon=True).start()
 
     tracer = None
     if params.trace:

@@ -7,7 +7,7 @@ I/O, and conversion between **byte-stream** (Annex-B start codes, what a
 video codec consumes) and **sample-stream** (length-prefixed NAL units, what
 lives inside a V3C unit) framing.
 
-RBV (our TPU codec) payloads are already length-framed internally and pass
+RBV (our device codec) payloads are already length-framed internally and pass
 through unchanged; the re-framing functions operate on any Annex-B payload
 (e.g. HEVC from an external backend).
 """

@@ -7,7 +7,7 @@ per-channel MD5, 444<->420 conversion, raw .yuv/.rgb file read/write.
 
 Design difference vs the reference: a Video is ONE contiguous NumPy array
 per plane group, shape (frames, H, W) (+ chroma at (frames, H/2, W/2) for
-420), so a whole GOF uploads to the TPU as a single host->device transfer and
+420), so a whole GOF uploads to the device as a single host->device transfer and
 all per-pixel ops are batched over frames.
 """
 

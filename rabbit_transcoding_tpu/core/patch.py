@@ -7,7 +7,7 @@ mode, the 8 placement orientations, LoD scales, and the geometry mappings
 ``generatePoint`` / ``patch2Canvas`` / ``canvasTo3D``.
 
 Design difference: every mapping has a **vectorised** form operating on whole
-(u, v) index grids at once, because the TPU decoder reprojects entire patches
+(u, v) index grids at once, because the device decoder reprojects entire patches
 as single gather/scatter ops (see ops/reproject.py) — there is no per-pixel
 ``generatePoint`` loop anywhere in the hot path.
 """

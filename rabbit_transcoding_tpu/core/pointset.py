@@ -5,7 +5,7 @@ Capability parity with the reference's PCCPointSet3
 positions, 8/16-bit colors, reflectances, normals, point types, ascii +
 binary PLY read/write, duplicate removal, MD5 checksum of the reordered
 cloud.  Design difference: storage is a struct-of-arrays of NumPy arrays so
-entire clouds move to the TPU as single device arrays; there are no per-point
+entire clouds move to the device as single arrays; there are no per-point
 objects and no per-point loops anywhere.
 
 The KNN-weighted recoloring kernels the reference hangs off this class

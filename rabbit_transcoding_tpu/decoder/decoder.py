@@ -46,7 +46,7 @@ class DecoderParameters:
     # Rec.709; PccAppDecoder.cpp:111-115)
     colorTransform: int = 0
     # multi-chip: a jax.sharding.Mesh shards the reconstruction's per-frame
-    # reprojection across devices (no reference analog — the TPU-native
+    # reprojection across devices (no reference analog — the multi-device
     # scaling axis, parallel/pipeline.py).  None = single device.
     shardingMesh: object = None
     # HDRConvert for the attribute YUV420->RGB444 inverse conversion

@@ -5,7 +5,7 @@ source/PCCEncoder.cpp:69-477 stage loop): segmentation -> packing ->
 occupancy/geometry video -> geometry-closed-loop reconstruction -> recolor ->
 attribute video -> atlas tile layers + parameter sets.
 
-TPU-first layout: all per-pixel stages (padding fill, video transforms,
+Device layout: all per-pixel stages (padding fill, video transforms,
 reprojection) run batched over the whole GOF on device; host does
 segmentation graph work, packing, entropy and syntax.
 """

@@ -4,7 +4,7 @@ Capability parity with PCCNormalsGenerator3 (/root/reference/source/lib/
 PccLibEncoder/source/PCCNormalsGenerator.cpp:61-533): per-point normals from
 the eigen-decomposition of the local covariance, then sign orientation.
 
-TPU-first split: the KNN graph is built once on host (scipy cKDTree — the
+Host/device split: the KNN graph is built once on host (scipy cKDTree — the
 nanoflann analog); the per-point covariance + eigh and every later
 consumer of the graph (segmentation refinement) run batched on device.
 Orientation uses viewpoint disambiguation (flip toward the outward ray from
@@ -18,6 +18,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from scipy.spatial import cKDTree
+
+# full float32 products: a float32 product may otherwise run in TF32 on
+# a GPU, and these 3-wide dots gain nothing from it
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _grid_knn(points: np.ndarray, k: int):
@@ -59,7 +63,7 @@ def _pca_normals(points: jax.Array, nbr_idx: jax.Array) -> jax.Array:
     mean = nbrs.mean(axis=1, keepdims=True)
     centered = nbrs - mean
     cov = jnp.einsum("nki,nkj->nij", centered, centered,
-                     precision=jax.lax.Precision.HIGHEST)
+                     precision=_HIGHEST)
     # eigh returns ascending eigenvalues; the smallest's vector is the normal
     _, vecs = jnp.linalg.eigh(cov)
     return vecs[:, :, 0]
@@ -70,7 +74,7 @@ def _orient_sweep(normals: jax.Array, nbr_idx: jax.Array) -> jax.Array:
     """One sign-consistency sweep: flip each normal if the majority of its
     neighbors' normals disagree in sign."""
     nbr_n = normals[nbr_idx]                    # (N, k, 3)
-    agree = jnp.einsum("nkc,nc->nk", nbr_n, normals)
+    agree = jnp.einsum("nkc,nc->nk", nbr_n, normals, precision=_HIGHEST)
     vote = agree.sum(axis=1)
     return jnp.where(vote[:, None] < 0, -normals, normals)
 
@@ -86,7 +90,8 @@ def _orient_all(
     ONE device program (one host round trip on high-latency links)."""
     centroid = points.mean(axis=0, keepdims=True)
     outward = points - centroid
-    flip = jnp.einsum("nc,nc->n", normals, outward) < 0
+    flip = jnp.einsum("nc,nc->n", normals, outward,
+                      precision=_HIGHEST) < 0
     n = jnp.where(flip[:, None], -normals, normals)
     n = jax.lax.fori_loop(
         0, sweeps, lambda _, x: _orient_sweep(x, nbr_idx), n
@@ -219,11 +224,12 @@ def _pca_normals_full(
     bary = (nbrs * w).sum(axis=1) / count
     centered = (nbrs - bary[:, None, :]) * w
     cov = jnp.einsum("nki,nkj->nij", centered, centered,
-                     precision=jax.lax.Precision.HIGHEST)
+                     precision=_HIGHEST)
     cov = cov / jnp.maximum(count - 1.0, 1.0)[..., None]
     vals, vecs = jnp.linalg.eigh(cov)                     # ascending
     n = vecs[:, :, 0]
-    flip = jnp.einsum("nc,nc->n", n, view_point[None] - points) < 0
+    flip = jnp.einsum("nc,nc->n", n, view_point[None] - points,
+                      precision=_HIGHEST) < 0
     n = jnp.where(flip[:, None], -n, n)
     return n, jnp.abs(vals), bary, count[:, 0]
 
@@ -243,7 +249,8 @@ def _smooth_normals(
 
     def body(_, n):
         nbr_n = n[nbr_idx]                                # (N, k, 3)
-        sign = jnp.sign(jnp.einsum("nkc,nc->nk", nbr_n, n))[..., None]
+        sign = jnp.sign(jnp.einsum("nkc,nc->nk", nbr_n, n,
+                                   precision=_HIGHEST))[..., None]
         acc = (nbr_n * jnp.where(sign == 0, 1.0, sign) * ok).sum(axis=1)
         acc = acc / jnp.maximum(jnp.linalg.norm(acc, axis=1, keepdims=True),
                                 1e-12)

@@ -143,7 +143,7 @@ class EncoderParameters:
     attributeDimensionPartitions: int = 1
 
     # per-component video codec selection (reference names,
-    # PccAppEncoder.cpp:477-499): RBV (TPU-native, default) or an external
+    # PccAppEncoder.cpp:477-499): RBV (the device codec, default) or an external
     # app family (HM_APP / JM_APP / SHM_APP / VTM_APP / FFMPEG_APP); the
     # *Path options pin the binary (else RABBIT_<ID>_ENCODER env, else PATH)
     videoEncoderOccupancyCodecId: str = "RBV"

@@ -7,7 +7,7 @@ refineSegmentation (:1286, iterative KNN smoothing of the partition), and
 segmentPatches (:506, connected components -> per-patch depth maps with a
 missed-points recovery loop).
 
-TPU-first split: PPI scoring and the smoothing iterations are batched device
+Host/device split: PPI scoring and the smoothing iterations are batched device
 ops over the (host-built) KNN graph; connected components run on host via
 scipy's sparse graph machinery (small, irregular); depth-map rasterisation is
 vectorised NumPy scatter per patch.
@@ -230,7 +230,8 @@ def _ppi_scores(
     normals: jax.Array, weights: jax.Array, mode: int = 0
 ) -> jax.Array:
     dirs = _DIRECTIONS_BY_MODE[mode]
-    return jnp.einsum("nc,dc->nd", normals, jnp.asarray(dirs)) * weights
+    return jnp.einsum("nc,dc->nd", normals, jnp.asarray(dirs),
+                      precision=jax.lax.Precision.HIGHEST) * weights
 
 
 def _direction_weights(mode: int, axis_weight) -> np.ndarray:
@@ -366,7 +367,7 @@ def refine_segmentation_grid_based(
     """refineSegmentationGridBased (PCCPatchSegmenter.cpp:1334-1513): the
     partition smooths over VOXEL-level PPI histograms gathered within a
     search radius, so far fewer neighbor relations are evaluated than in the
-    point-KNN variant.  TPU split: voxelization + radius-limited voxel
+    point-KNN variant.  Host/device split: voxelization + radius-limited voxel
     adjacency (truncated once the cumulative member-point count reaches
     maxNNCount, which also fixes the lambda/nnPointCount weight) on host;
     all iterations run as one device program."""

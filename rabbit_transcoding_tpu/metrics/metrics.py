@@ -311,7 +311,7 @@ def d1_psnr_sharded(
     """Multi-chip symmetric D1 PSNR: both NN passes run on the device
     grid-hash KNN with query points sharded over every mesh device and the
     (sum, count) partials reduced in one psum (parallel/pipeline.py — the
-    ICI metrics reduction of SURVEY §2.7).
+    multi-chip metrics reduction of SURVEY §2.7).
 
     This is the throughput path for monitoring at scale: plain
     nearest-neighbour D1 (the pcc_error default), WITHOUT the

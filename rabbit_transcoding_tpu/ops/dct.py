@@ -1,11 +1,11 @@
-"""Batched 2D block DCT/IDCT as MXU matmuls.
+"""Batched 2D block DCT/IDCT as matmuls.
 
-The transform stage of the RBV video codec (the TPU-native replacement for
-the reference's HM/x265 transform path).  A 2D DCT-II of a BxB block is two
+The transform stage of the RBV video codec (the replacement for the
+reference's HM/x265 transform path).  A 2D DCT-II of a BxB block is two
 matrix multiplies (D @ X @ D^T); batching every block of every frame of a
 GOP into one (N, B, B) tensor turns the whole transform into two large
-matmuls that XLA tiles onto the MXU — this is exactly the shape of work TPUs
-are built for, in contrast to the reference's per-CU scalar loops.
+batched matmuls for XLA, in contrast to the reference's per-CU scalar
+loops.
 """
 
 from __future__ import annotations
@@ -42,8 +42,10 @@ def deblockify(x: jax.Array) -> jax.Array:
     return x.reshape(*lead, nby * b, nbx * b2)
 
 
-# Full fp32 MXU precision: the TPU default (bf16 inputs) has an 8-bit
-# mantissa, far too coarse for 10-bit geometry planes in a closed codec loop.
+# Full float32 products.  Left to its default, a float32 matmul may run in
+# TF32 on a GPU (a 10-bit mantissa) or in bf16 passes elsewhere: far too
+# coarse for 10-bit geometry in a closed codec loop, where the encoder's
+# reconstruction must equal the decoder's.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 

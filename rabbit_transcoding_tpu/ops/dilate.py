@@ -5,7 +5,7 @@ Capability parity with the reference's padding family (PCCEncoder::dilate
 atlas pixels are filled with values that compress well and do not bleed
 across patch edges.
 
-TPU-first design: the push-pull pyramid is a sequence of masked 2x2 mean
+Device design: the push-pull pyramid is a sequence of masked 2x2 mean
 reductions (push) and broadcast fills (pull) — O(log N) fused element-wise
 passes over (frames, H, W), instead of the reference's per-pixel sweeps.
 """
@@ -16,8 +16,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-
-from ..utils.aot import aot_jit
 
 
 def _down2(val: jax.Array, wgt: jax.Array):
@@ -32,7 +30,7 @@ def _up2(x: jax.Array):
     return jnp.repeat(jnp.repeat(x, 2, axis=1), 2, axis=2)
 
 
-@aot_jit
+@jax.jit
 def push_pull_fill(img: jax.Array, occ: jax.Array) -> jax.Array:
     """Fill unoccupied pixels of (F, H, W) `img` (float32) from a masked
     mipmap pyramid; occupied pixels keep their exact values.
@@ -63,7 +61,7 @@ def push_pull_fill(img: jax.Array, occ: jax.Array) -> jax.Array:
     return jnp.where(wgt > 0, img.astype(jnp.float32), fill)
 
 
-@partial(aot_jit, static_argnames=("iterations",))
+@partial(jax.jit, static_argnames=("iterations",))
 def dilate(img: jax.Array, occ: jax.Array, iterations: int = 2) -> jax.Array:
     """Simple iterative dilation (PCCEncoder::dilate analog): each pass fills
     empty pixels with the mean of occupied 4-neighbours."""
@@ -89,7 +87,7 @@ def dilate(img: jax.Array, occ: jax.Array, iterations: int = 2) -> jax.Array:
     return val
 
 
-@partial(aot_jit, static_argnames=("iterations",))
+@partial(jax.jit, static_argnames=("iterations",))
 def harmonic_fill(
     img: jax.Array, occ: jax.Array, iterations: int = 24
 ) -> jax.Array:

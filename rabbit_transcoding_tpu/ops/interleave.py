@@ -12,10 +12,10 @@ Device ops: pure elementwise selects + shifts, fused by XLA.
 
 from __future__ import annotations
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
-
-from ..utils.aot import aot_jit
 
 
 def _parity0(h: int, w: int) -> jax.Array:
@@ -23,7 +23,7 @@ def _parity0(h: int, w: int) -> jax.Array:
     return ((yy + xx) % 2) == 0
 
 
-@aot_jit
+@jax.jit
 def interleave_maps(m0: jax.Array, m1: jax.Array) -> jax.Array:
     """(F, H, W) x2 -> (F, H, W): even-parity pixels from map 0, odd from
     map 1."""
@@ -31,10 +31,7 @@ def interleave_maps(m0: jax.Array, m1: jax.Array) -> jax.Array:
     return jnp.where(par0[None], m0, m1)
 
 
-from functools import partial  # noqa: E402
-
-
-@partial(aot_jit, static_argnames=("use_occ", "use_clamp"))
+@partial(jax.jit, static_argnames=("use_occ", "use_clamp"))
 def _deinterleave_impl(plane, occ, thickness, use_occ: bool,
                        use_clamp: bool):
     f, h, w = plane.shape

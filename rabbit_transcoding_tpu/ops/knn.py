@@ -1,8 +1,9 @@
 """Grid-hash K-nearest-neighbour search on device.
 
-The TPU replacement for the reference's nanoflann KD-tree (SURVEY.md §7.5):
-KD-trees are pointer-chasing structures a TPU cannot traverse; voxelised
-point clouds hash perfectly into a uniform grid instead.
+The device replacement for the reference's nanoflann KD-tree (SURVEY.md
+§7.5): KD-trees are pointer-chasing structures that batched device code
+traverses badly; voxelised point clouds hash perfectly into a uniform grid
+instead.
 
 Build: one bincount + exclusive cumsum (CSR cell index) over the reference
 points sorted by cell id.  Query: every query point gathers up to ``cap``

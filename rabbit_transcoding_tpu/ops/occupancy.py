@@ -3,7 +3,7 @@
 The transcoder's occupancy 2x2 max-pool downscale (PCCTranscoder.cpp:594-646,
 resizeOccupancyMap :341-372) and the decoder's occupancy upsample
 (PCCCodec::generateOccupancyMap, PCCCodec.cpp:1584) as batched XLA ops over
-(frames, H, W).  These lower to single fused reduce/broadcast kernels on TPU —
+(frames, H, W).  These lower to single fused reduce/broadcast kernels on the device —
 the reference's per-pixel double loops are the anti-pattern we avoid.
 """
 
@@ -14,15 +14,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..utils.aot import aot_jit
-
-
-def _aotp(**kw):
-    # aot_jit == jax.jit off-TPU; persists executables on TPU (utils/aot.py)
-    return partial(aot_jit, **kw)
-
-
-@_aotp(static_argnames=("factor",))
+@partial(jax.jit, static_argnames=("factor",))
 def downscale_maxpool(occ: jax.Array, factor: int) -> jax.Array:
     """(F, H, W) -> (F, H/f, W/f) max-pool.  Max (not mean) preserves any
     occupied pixel, matching the reference's conservative downscale."""
@@ -31,13 +23,13 @@ def downscale_maxpool(occ: jax.Array, factor: int) -> jax.Array:
     return x.max(axis=(2, 4))
 
 
-@_aotp(static_argnames=("factor",))
+@partial(jax.jit, static_argnames=("factor",))
 def upsample_nearest(occ: jax.Array, factor: int) -> jax.Array:
     """(F, h, w) -> (F, h*f, w*f) nearest-neighbour upsample."""
     return jnp.repeat(jnp.repeat(occ, factor, axis=1), factor, axis=2)
 
 
-@_aotp()
+@jax.jit
 def prefilter_lossy_om(planes: jax.Array) -> jax.Array:
     """3x3 smoothing prefilter over the lossy occupancy video
     (preFilterOccupancyMap, PCCEncoder.cpp:827-852; kernel
@@ -56,14 +48,14 @@ def prefilter_lossy_om(planes: jax.Array) -> jax.Array:
     return (out >> 8).astype(jnp.uint8)
 
 
-@_aotp(static_argnames=("threshold",))
+@partial(jax.jit, static_argnames=("threshold",))
 def binarize(occ: jax.Array, threshold: int = 0) -> jax.Array:
     """Occupancy video plane -> binary map (lossy-occupancy threshold,
     OccupancyInformation.oi_lossy_occupancy_compression_threshold)."""
     return (occ > threshold).astype(jnp.uint8)
 
 
-@_aotp(static_argnames=("passes", "radius"))
+@partial(jax.jit, static_argnames=("passes", "radius"))
 def pbf_refine(
     occ: jax.Array,        # (F, H, W) bool/uint8 (precision-upsampled)
     geo: jax.Array,        # (F, H, W) decoded near-layer geometry

@@ -310,7 +310,7 @@ def transfer_colors_device(
     k: int = 1,
     coord_bits: int = 10,
 ) -> np.ndarray:
-    """Device grid-hash variant (ops/knn.py) of transfer_colors: the TPU path
+    """Device grid-hash variant (ops/knn.py) of transfer_colors: the device path
     for batched multi-stream recoloring.  Falls back to the nearest found
     candidate; points with no in-radius neighbour take the globally nearest
     via a host fixup (rare: isolated outliers)."""

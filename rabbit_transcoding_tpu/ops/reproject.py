@@ -1,6 +1,6 @@
 """Batched patch->3D reprojection + block-to-patch on device.
 
-The TPU-native replacement for PCCCodec::generatePointCloud /
+The device replacement for PCCCodec::generatePointCloud /
 generateBlockToPatchFromOccupancyMapVideo (PCCCodec.cpp:517, :1712): instead
 of per-pixel loops over patches, the whole atlas is processed as dense
 (frames, H, W) tensors:

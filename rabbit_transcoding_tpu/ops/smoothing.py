@@ -7,7 +7,7 @@ neighborhood centroid, and isolated occupancy-fill outliers (the artifact
 class the reference suppresses with occupancy refinement / PBF) are dropped
 by a density test.  Driven by the geometry-smoothing SEI parameters.
 
-TPU-first: one scatter-add builds a (cells, 4) accumulation grid for the
+Device design: one scatter-add builds a (cells, 4) accumulation grid for the
 whole cloud; each point gathers its 27-cell neighborhood stats — a handful
 of fused device passes, no per-point loops.  Static shapes via pow2 padding.
 """
@@ -19,6 +19,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+# full float32 products (a float32 product may otherwise run in TF32 on a
+# GPU; these 3-wide luma dots gain nothing from it)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 _OFFSETS = np.array(
     [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
@@ -93,7 +97,7 @@ def color_grid_smooth(
     mean = stats[:, :3] / count[:, None]
     # luma-weighted deviation (BT.709 luma)
     lw = jnp.asarray([0.2126, 0.7152, 0.0722], jnp.float32)
-    dev = jnp.abs((c - mean) @ lw)
+    dev = jnp.abs(jnp.matmul(c - mean, lw, precision=_HIGHEST))
     move = valid & (dev > threshold) & (stats[:, 3] > 4.0)
     out = jnp.where(
         move[:, None],
@@ -133,7 +137,7 @@ def color_grid_smooth_gated(
     w = valid.astype(jnp.float32)
     c = colors.astype(jnp.float32)
     lw = jnp.asarray([0.2126, 0.7152, 0.0722], jnp.float32)
-    lum = c @ lw
+    lum = jnp.matmul(c, lw, precision=_HIGHEST)
     acc = jnp.zeros((grid_dim, grid_dim, grid_dim, 6), jnp.float32)
     acc = acc.at[cell[:, 0], cell[:, 1], cell[:, 2]].add(
         jnp.concatenate(
@@ -177,7 +181,7 @@ def color_grid_smooth_gated(
         csum = csum + st[:, :3] * use[:, None]
         ccnt = ccnt + st[:, 3] * use
     mean = csum / jnp.maximum(ccnt, 1.0)[:, None]
-    dev = jnp.abs(lum - mean @ lw) * 10.0
+    dev = jnp.abs(lum - jnp.matmul(mean, lw, precision=_HIGHEST)) * 10.0
     move = (
         valid & eligible & mixed & own_ok
         & (dev >= threshold) & (ccnt > 0.0)
@@ -353,7 +357,7 @@ def presmooth_colors(
     ).astype(np.int32)
     # vectorized per-row Shannon entropy: scatter-add in-radius luma values
     # into a (rows, 256) histogram (a per-row python unique() loop measured
-    # minutes per frame on this 1-core host)
+    # minutes per frame on a single-core host)
     rows = len(cand)
     hist = np.zeros((rows, 256), np.int32)
     rr = np.repeat(np.arange(rows), k)

@@ -1,15 +1,19 @@
 """Multi-chip scaling: device-mesh sharding of (stream x frame x space) batches.
 
 The reference's only parallelism is shared-memory TBB loops (SURVEY.md §2.7);
-the TPU-native replacement is a jax.sharding Mesh over ICI:
+the device replacement is a jax.sharding Mesh over the local accelerators
+(on GPUs XLA hands its collectives to NCCL over NVLink):
 
  * axis "stream" — data parallelism over concurrent V-PCC streams (the
-   BASELINE.json config #5: N concurrent 8i sequences per pod slice);
+   BASELINE.json config #5: N concurrent 8i sequences per host);
  * axis "space"  — spatial parallelism over atlas rows (the multi-tile /
    ROI analog, SURVEY.md §5.7): each device transforms its own row band of
    every frame; RBV's block transforms are row-local so XLA inserts no
    communication in the hot loop, and cross-chip reductions (global metrics)
-   ride ICI collectives.
+   are collectives.
+
+The mesh shape follows the algorithm, not an interconnect topology:
+make_mesh factors the device count as evenly as it can.
 
 No TP/PP/EP analog exists in this domain (SURVEY.md §2.7 states this
 explicitly): a video codec has no weight matrices to shard (no TP), no layer
@@ -69,7 +73,7 @@ def transcode_compute_step(
     reconstruct output pixels + distortion.  All-intra shape (the P-chain
     variant runs per-GOP via lax.scan in video.rbv); returns
     (new_coeffs, recon, mse) where mse is a global scalar — the cross-chip
-    reduction that exercises ICI collectives."""
+    reduction that exercises the collectives (NCCL over NVLink on GPUs)."""
     from ..video.rbv import _DZ_INTRA, _quantize
 
     pixels = deblockify(idct2d(coeffs.astype(jnp.float32) * qstep_in))

@@ -2,7 +2,7 @@
 
 parallel/mesh.py and parallel/multistream.py shard the TRANSCODER; the
 round-3 review asked for the other two device-heavy pipelines too
-(SURVEY.md §2.7: multi-chip metrics reduction over ICI):
+(SURVEY.md §2.7: multi-chip metrics reduction):
 
  * decoder reconstruction (ops/reproject.py): the per-frame vmap is
    embarrassingly frame-parallel, so frames shard across EVERY mesh
@@ -10,8 +10,8 @@ round-3 review asked for the other two device-heavy pipelines too
    zero communication;
  * metrics nearest-neighbour (ops/knn.py grid_knn): query points shard
    across devices, the reference grid is replicated (it is the small
-   side), and the per-shard partial sums meet in one psum over ICI —
-   the canonical sharded-reduction shape.
+   side), and the per-shard partial sums meet in one psum (an NCCL
+   all-reduce on GPUs) — the canonical sharded-reduction shape.
 
 Both paths are asserted IDENTICAL to their single-device results in
 tests/test_parallel.py and exercised by __graft_entry__.dryrun_multichip.
@@ -80,8 +80,8 @@ def make_sharded_nn_mse(
 
     Queries shard over every device; each shard runs the grid-hash KNN
     against the replicated reference set and the partial (sum, count)
-    meet in one psum — on hardware this is the ICI collective of the
-    multi-chip metrics path.  Returns f(queries, valid_mask, refs) ->
+    meet in one psum — on GPUs the NCCL all-reduce of the multi-chip
+    metrics path.  Returns f(queries, valid_mask, refs) ->
     scalar MSE (float32 jax scalar)."""
 
     @partial(

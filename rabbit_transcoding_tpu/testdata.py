@@ -215,6 +215,85 @@ SCENES = {
 }
 
 
+def make_bench_stream(frames: int, width: int = 1024, height: int = 1024,
+                      seed: int = 0) -> bytes:
+    """A one-GOF V3C stream with encoder-output statistics: ~30% occupied
+    atlas, smooth background-filled geometry (10-bit, RBV QP 16, GOP 2) and
+    YUV420 attribute (QP 22, GOP 2), lossless occupancy at precision 2.
+    The input of the transcode benchmark and of the on-card smoke test.
+    ``width`` and ``height`` are multiples of 64."""
+    from scipy.ndimage import zoom
+
+    from .bitstream import V3CWriter, VideoBitstream
+    from .bitstream.hls import Context
+    from .bitstream.syntax import (
+        AtlasFrameParameterSetRbsp,
+        AtlasSequenceParameterSetRbsp,
+        V3CParameterSet,
+    )
+    from .core.image import Video
+    from .utils.enums import CodecId, ColorFormat, VideoType
+    from .video import VideoEncoder, VideoEncoderParams
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    # occupancy: smooth-noise blobs at 64 px granularity, ~30% fill
+    occ_precision = 2
+    blobs = rng.normal(size=(frames, height // 64, width // 64))
+    occ = np.stack(
+        [zoom(blobs[f], 64, order=1) > 0.5 for f in range(frames)]
+    ).astype(np.uint8)[:, :height, :width]
+
+    # planes are smooth everywhere: encoder output is background-filled
+    # (push-pull padding) so unoccupied pixels create no coefficient energy
+    geo = np.zeros((frames, height, width), np.uint16)
+    attr_y = np.zeros((frames, height, width), np.uint8)
+    for f in range(frames):
+        g = 300 + 120 * np.sin((xx + 7 * f) / 37.0) * np.cos((yy - 3 * f) / 29.0)
+        geo[f] = g.astype(np.uint16)
+        a = 128 + 80 * np.sin((xx + 5 * f) / 23.0) + 30 * np.cos(yy / 17.0)
+        attr_y[f] = np.clip(a, 0, 255).astype(np.uint8)
+
+    occ_small = occ.reshape(
+        frames, height // occ_precision, occ_precision,
+        width // occ_precision, occ_precision,
+    ).max(axis=(2, 4))
+
+    enc = VideoEncoder.create(CodecId.RBV)
+    enc_ll = VideoEncoder.create(CodecId.RBV_LOSSLESS)
+    occ_payload, _ = enc_ll.encode(
+        Video(width // occ_precision, height // occ_precision, 8,
+              ColorFormat.YUV400, [occ_small]),
+        VideoEncoderParams(lossless=True),
+    )
+    geo_payload, _ = enc.encode(
+        Video(width, height, 10, ColorFormat.YUV400, [geo]),
+        VideoEncoderParams(qp=16, gop_size=2),
+    )
+    u = np.full((frames, height // 2, width // 2), 128, np.uint8)
+    attr_payload, _ = enc.encode(
+        Video(width, height, 8, ColorFormat.YUV420, [attr_y, u, u.copy()]),
+        VideoEncoderParams(qp=22, gop_size=2),
+    )
+
+    context = Context()
+    vps = V3CParameterSet()
+    vps.atlas(0).vps_frame_width = width
+    vps.atlas(0).vps_frame_height = height
+    context.vps_list.append(vps)
+    atlas = context.atlas(0)
+    atlas.asps_list.append(
+        AtlasSequenceParameterSetRbsp(asps_frame_width=width,
+                                      asps_frame_height=height)
+    )
+    atlas.afps_list.append(AtlasFrameParameterSetRbsp())
+    atlas.set_video_bitstream(VideoBitstream(VideoType.OCCUPANCY, occ_payload))
+    atlas.set_video_bitstream(VideoBitstream(VideoType.GEOMETRY, geo_payload))
+    atlas.set_video_bitstream(VideoBitstream(VideoType.ATTRIBUTE, attr_payload))
+    writer = V3CWriter()
+    return writer.write(writer.encode(context))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=4)

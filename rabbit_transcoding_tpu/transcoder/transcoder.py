@@ -7,9 +7,9 @@ points **without re-running segmentation/packing**, optionally downscale the
 occupancy map, refresh the hash SEI, and leave all other atlas metadata
 intact for remux.
 
-TPU-first re-design of the hot loop (transcodeVideo :374):
+Device re-design of the hot loop (transcodeVideo :374):
  * 'reencode' mode — decode->re-encode entirely on device (the reference's
-   fast path, minus libav: RBV transforms are batched MXU matmuls over the
+   fast path, minus libav: RBV transforms are batched matmuls over the
    whole GOF).  Drift-free.
  * 'requant'  mode — DCT-domain requantisation (video/rbv.requantize): one
    element-wise device pass over the coefficient tensors; no pixel-domain

@@ -14,13 +14,13 @@ import enum
 class CodecId(enum.IntEnum):
     """Video codec backends selectable through the virtual codec factory.
 
-    The reference exposes JM/HM/SHM/VTM app+lib backends plus FFMPEG.  In this
-    TPU build the primary backend is RBV — our own TPU-native block codec
-    (JAX/Pallas transforms + host entropy coding).  External app backends are
+    The reference exposes JM/HM/SHM/VTM app+lib backends plus FFMPEG.  Here
+    the primary backend is RBV — our own block codec (JAX device transforms
+    + host entropy coding).  External app backends are
     supported when the corresponding binary exists on the host.
     """
 
-    RBV = 0          # TPU-native rabbit-video codec (default)
+    RBV = 0          # rabbit-video device codec (default)
     RBV_LOSSLESS = 1 # RBV forced lossless (occupancy)
     HM_APP = 2       # external TAppEncoder/TAppDecoder if present on host
     FFMPEG_APP = 3   # external ffmpeg binary if present on host

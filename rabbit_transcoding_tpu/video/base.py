@@ -4,7 +4,7 @@ Capability parity with PCCVirtualVideoEncoder/Decoder (/root/reference/source/
 lib/PccLibVideoEncoder/include/PCCVirtualVideoEncoder.h:42-76,
 PccLibVideoDecoder/include/PCCVirtualVideoDecoder.h:43-55): pipelines request
 a codec by ``CodecId`` and get a uniform encode/decode interface.  The
-primary backend is RBV (TPU-native); external app backends (HM TAppEncoder /
+primary backend is RBV (the device codec); external app backends (HM TAppEncoder /
 ffmpeg) plug in behind the same interface when their binaries exist on the
 host — mirroring the reference's *APP codec modes which shell out
 (PCCHMAppVideoEncoder.cpp:60-69).
@@ -146,7 +146,7 @@ def component_encoder(params, role: str, lossless: bool = False) -> "VideoEncode
     """An encoder for one video role ('occupancy', 'geometry', 'geometryMP',
     'attribute', 'attributeMP') honoring the per-component codec selection.
 
-    RBV (default) keeps the TPU-native path; external codecs shell out via
+    RBV (default) keeps the device codec path; external codecs shell out via
     the app wrappers with the role's cfg file attached (the reference routes
     PCCVideoEncoder::compress through PCCVirtualVideoEncoder the same way,
     PCCVideoEncoder.cpp:282)."""

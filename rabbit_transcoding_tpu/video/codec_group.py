@@ -5,7 +5,7 @@ The reference identifies the video codec of a V3C stream through
 the MP4RA group, the Component Codec Mapping SEI's 4CC entries; decoders
 map that back to a concrete codec with ``PCCTranscoder::getCodedCodecId``
 (PCCTranscoder.cpp:2110-2243).  This module is that mapping for our codec
-set: RBV (the TPU-native codec, signalled as an MP4RA 4CC ``rbv1``) plus
+set: RBV (the device codec, signalled as an MP4RA 4CC ``rbv1``) plus
 the external HM/JM/SHM/VTM/ffmpeg app backends.
 """
 

@@ -18,11 +18,18 @@ Used two ways:
 
 from __future__ import annotations
 
+import os
 import struct
 import sys
 import zlib
 
 import numpy as np
+
+# run as a script (the stand-in codec binary), the package is found from
+# the checkout this file lives in, installed or not
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if _REPO not in sys.path:
+    sys.path.insert(0, _REPO)
 
 from rabbit_transcoding_tpu.bitstream.bitio import BitWriter
 from rabbit_transcoding_tpu.bitstream.video_bitstream import split_annexb

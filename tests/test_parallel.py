@@ -177,6 +177,31 @@ class TestMultiStreamPayloads:
         assert all(a == b for a, b in zip(seq, bat))
 
 
+class TestEncodeThreadsSingleDevice:
+    """The host-encode threads of the sharded path run single-device
+    programs only: several threads dispatching multi-device programs at
+    once can deadlock in their collectives on GPUs."""
+
+    @pytest.mark.parametrize("mc", [False, True])
+    def test_encode_inputs_on_one_device(self, mc, monkeypatch):
+        from rabbit_transcoding_tpu.parallel import multistream
+
+        seen = []
+        real = multistream._encode_coeff_blob
+
+        def spy(q, level):
+            seen.append(len(q.sharding.device_set))
+            return real(q, level)
+
+        monkeypatch.setattr(multistream, "_encode_coeff_blob", spy)
+        mesh = make_mesh(jax.devices()[:4])
+        pays = [_payload(16, mc=mc), _payload(20, mc=mc),
+                _payload(24, mc=mc, intra=True)]
+        bat = transcode_payloads(pays, 32, mesh=mesh)
+        assert bat == [rbv.transcode_payload(p, 32) for p in pays]
+        assert seen and set(seen) == {1}
+
+
 class TestMultiStreamEdgeCases:
     """MultiStreamTranscoder must stay byte-identical to the sequential
     Transcoder for map-stream and lossless inputs too."""

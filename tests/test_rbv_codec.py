@@ -1,4 +1,4 @@
-"""Unit tests: the RBV TPU video codec (transforms, closed loop, container)."""
+"""Unit tests: the RBV video codec (transforms, closed loop, container)."""
 
 import numpy as np
 import pytest
@@ -227,48 +227,30 @@ class TestCompensatedRequant:
         assert mse_comp < mse_open * 0.5, (mse_comp, mse_open)
 
 
-class TestAdaptiveSlab8:
-    """The int8 AC wire format turns on adaptively from the measured
-    host->device link rate (slow tunneled links only); RBV_SLAB8 env
-    overrides in both directions."""
+class TestFusedTranscode:
+    """The fused decode->re-encode device program (what every reencode
+    transcode of a P-chain stream runs) against its plain reference: the
+    decode program, pixels on the host, then the encode program."""
 
-    def _reset(self):
-        rbv.note_link_rate(1e9)  # pretend fast
-        rbv._LINK_RATE_MBPS = None
-
-    def test_adaptive_from_link_rate(self, monkeypatch):
-        monkeypatch.delenv("RBV_SLAB8", raising=False)
-        old = rbv._LINK_RATE_MBPS
-        try:
-            rbv._LINK_RATE_MBPS = None
-            assert not rbv._slab8_enabled()  # unknown link: off
-            rbv.note_link_rate(20.0)  # tunnel-class
-            assert rbv._slab8_enabled()
-            rbv.note_link_rate(2000.0)  # PCIe-class
-            assert not rbv._slab8_enabled()
-        finally:
-            rbv._LINK_RATE_MBPS = old
-
-    def test_env_override_wins(self, monkeypatch):
-        old = rbv._LINK_RATE_MBPS
-        try:
-            rbv.note_link_rate(20.0)
-            monkeypatch.setenv("RBV_SLAB8", "0")
-            assert not rbv._slab8_enabled()
-            rbv.note_link_rate(2000.0)
-            monkeypatch.setenv("RBV_SLAB8", "1")
-            assert rbv._slab8_enabled()
-        finally:
-            rbv._LINK_RATE_MBPS = old
-
-    def test_measure_link_rate_records(self):
-        old = rbv._LINK_RATE_MBPS
-        try:
-            rate = rbv.measure_link_rate(1 << 20)
-            assert rate > 0
-            assert rbv._LINK_RATE_MBPS == rate
-        finally:
-            rbv._LINK_RATE_MBPS = old
+    @pytest.mark.parametrize("gop", [1, 2, 4])
+    def test_matches_unfused_reference(self, gop):
+        f, h, w = 8, 48, 64
+        v = smooth_video(frames=f, h=h, w=w, bitdepth=10,
+                         fmt=ColorFormat.YUV400, seed=gop)
+        payload, _ = rbv.encode(v, rbv.RbvParams(qp=16, gop_size=gop))
+        blob = next(rbv._iter_blobs(payload, 1))
+        q = rbv._decode_coeff_blob(blob, f, h // 16, w // 16, 16)
+        qs_in = jnp.float32(rbv.qstep_of(16))
+        qs_out = jnp.float32(rbv.qstep_of(30))
+        maxval = jnp.float32(1023.0)
+        fused = np.asarray(rbv._transcode_device(
+            q, qs_in, qs_out, maxval, 16, gop, gop))
+        pixels = np.asarray(rbv._decode_device(q, qs_in, maxval, 16, gop))
+        ref, _ = rbv._encode_device(jnp.asarray(pixels), qs_out, maxval,
+                                    16, gop)
+        assert fused.shape == (f, h // 16, w // 16, 16, 16)
+        assert np.count_nonzero(fused) > 0
+        np.testing.assert_array_equal(fused, np.asarray(ref))
 
 
 class TestDeblock:
